@@ -24,7 +24,7 @@ cd "$WORK"
 # 1. both aligners index the SAME frozen FASTA
 cp "$GOLD/ref.fa" ref.fa
 "$BWA" index -p bwa_idx ref.fa 2> bwa_index.log
-python -m tpubwa index -p tpu_idx ref.fa 2> tpu_index.log
+python -m tpubwa index -p ours_idx ref.fa 2> ours_index.log
 
 norm() { grep -v '^@PG' "$1" | LC_ALL=C sort; }
 
@@ -40,24 +40,24 @@ rate() {  # rate <a.sam> <b.sam> <label>
 
 # 2. SE
 "$BWA" mem bwa_idx "$GOLD/se.fq" > bwa_se.sam 2> bwa_se.log
-python -m tpubwa mem tpu_idx "$GOLD/se.fq" > tpu_se.sam 2> tpu_se.log
-rate bwa_se.sam tpu_se.sam SE || FAIL=1
+python -m tpubwa mem ours_idx "$GOLD/se.fq" > ours_se.sam 2> ours_se.log
+rate bwa_se.sam ours_se.sam SE || FAIL=1
 
 # 3. PE (pin chunk semantics: one chunk => identical pestat window)
 "$BWA" mem bwa_idx "$GOLD/pe1.fq" "$GOLD/pe2.fq" > bwa_pe.sam \
     2> bwa_pe.log
-python -m tpubwa mem tpu_idx "$GOLD/pe1.fq" "$GOLD/pe2.fq" \
-    > tpu_pe.sam 2> tpu_pe.log
-rate bwa_pe.sam tpu_pe.sam PE || FAIL=1
+python -m tpubwa mem ours_idx "$GOLD/pe1.fq" "$GOLD/pe2.fq" \
+    > ours_pe.sam 2> ours_pe.log
+rate bwa_pe.sam ours_pe.sam PE || FAIL=1
 
 # 4. fastmap (seeding-stage equality)
 "$BWA" fastmap bwa_idx "$GOLD/se.fq" > bwa_fm.txt 2>/dev/null || true
-python -m tpubwa fastmap tpu_idx "$GOLD/se.fq" > tpu_fm.txt
+python -m tpubwa fastmap ours_idx "$GOLD/se.fq" > ours_fm.txt
 if [ -s bwa_fm.txt ]; then
-    if diff -q bwa_fm.txt tpu_fm.txt > /dev/null; then
+    if diff -q bwa_fm.txt ours_fm.txt > /dev/null; then
         echo "[diff] fastmap: identical"
     else
-        echo "[diff] fastmap: DIFFERS (diff bwa_fm.txt tpu_fm.txt)"
+        echo "[diff] fastmap: DIFFERS (diff bwa_fm.txt ours_fm.txt)"
         FAIL=1
     fi
 fi

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Hardware-independent seeding-machine comparison: ROUND counts of
 mega vs megaq on the same corpus (CPU).  Rounds x per-round gather
-cost is the chip cost model (docs/PERF_NOTES.md: machine rounds are
-WORK-bound; fwd round = 2 gathers/lane, bwd round = 2P gathers/lane).
+cost is the machines' cost model (fwd round = 2 gathers/lane, bwd
+round = 2P gathers/lane; see PERF.md).
 
 Measured 2026-08-17 (8 Mb genome + repeat region, 2048 reads, 1-5%
 error):

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Stage-level profiling at genome scale (the VERDICT round-2 metric is
-chr20-scale, 64 Mbp).  Builds/caches a synthetic index, aligns PE
+"""Stage-level profiling at genome scale (chr20-scale, 64 Mbp, by
+default).  Builds/caches a synthetic index, aligns PE
 batches on the device pipeline, and prints a per-stage wall breakdown.
 
 Usage: python scripts/profile_scale.py [--mb 64] [--pairs 16000]
@@ -14,7 +14,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-CACHE = os.path.join(os.path.expanduser("~"), ".cache", "tpubwa-bench")
+CACHE = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), ".bench_cache")
 
 
 def cached_index(genome_mb: int, seed: int = 3):
@@ -74,8 +75,6 @@ def main():
                          "(same index+reads as bench.py's headline row)")
     args = ap.parse_args()
 
-    from tpubwa.utils import enable_compilation_cache
-    enable_compilation_cache()
     from tpubwa.opts import MEM_F_PE, MemOpt
     from tpubwa.host.pipeline import process_batches, process_seqs
     from tpubwa.device.pipeline import make_device_aligner

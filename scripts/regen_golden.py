@@ -173,7 +173,7 @@ if __name__ == "__main__":
     # CPU-forcing is a process-global side effect: only when run as a
     # script, never on import (tests import run_outputs, which passes
     # --device cpu explicitly; mutating jax config here would silently
-    # pin a TPU-present test process to CPU — ADVICE r3).
+    # pin an accelerator-present test process to CPU).
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     import jax
 

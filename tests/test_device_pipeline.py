@@ -54,8 +54,7 @@ def test_device_regions_equal_scalar(setup):
     nread = reads[0].seq.copy()
     nread[40:44] = 4
     reads.append(Read("withn", nread, None))
-    aligner = make_device_aligner(opt, fmi, platform="cpu",
-                                  use_pallas=False)
+    aligner = make_device_aligner(opt, fmi, platform="cpu")
     got = aligner(reads)
     for i, r in enumerate(reads):
         want = align1_core(opt, fmi, r, mat)

@@ -46,7 +46,7 @@ def setup(tmp_path_factory):
 def _env(port, pid, nprocs):
     env = dict(os.environ)
     env.update({
-        "TPUBWA_JAX_PLATFORMS": "cpu",
+        "JAX_PLATFORMS": "cpu",
         "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
         "JAX_NUM_PROCESSES": str(nprocs),
         "JAX_PROCESS_ID": str(pid),
@@ -110,7 +110,7 @@ def test_kill_and_resume_reproduces_sam(setup):
     # then merge), kill shard 1 mid-run, resume from journal
     out_f = str(d / "fault.sam")
     env = dict(os.environ,
-               TPUBWA_JAX_PLATFORMS="cpu",
+               JAX_PLATFORMS="cpu",
                PYTHONPATH=REPO + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
 

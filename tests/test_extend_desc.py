@@ -103,7 +103,7 @@ def test_word_path_equals_element_path(setup, seed, tmax):
     desc = jnp.asarray(da.astype(didx.np_idt))
     qd = jnp.asarray(reads)
     args = (didx, qd, desc, opt.a, opt.b, opt.o_del, opt.e_del,
-            opt.o_ins, opt.e_ins, opt.zdrop, 128, tmax, True)
+            opt.o_ins, opt.e_ins, opt.zdrop, 128, tmax)
     want = np.asarray(_extend_seed_desc_impl(*args, gather="element"))
     got = np.asarray(_extend_seed_desc_impl(*args, gather="word"))
     assert got.tolist() == want.tolist()

@@ -1,6 +1,6 @@
 """REAL pipeline on a multi-chip mesh == single-device run (VERDICT
 round-1 item 3): DeviceAligner in data-parallel mesh mode (index
-replicated, job arrays sharded over 'dp', Pallas extension under
+replicated, job arrays sharded over 'dp', extension row loop under
 shard_map) must produce region-identical and SAM-identical output on
 an 8-virtual-device CPU mesh."""
 import numpy as np

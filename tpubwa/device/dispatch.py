@@ -1,12 +1,12 @@
 """Extension-wave dispatch: gather -> batch -> kernel -> scatter
-(SURVEY.md §2 row 17, §3.4 — the TPU analogue of the reference's
+(SURVEY.md §2 row 17, §3.4 — the device analogue of the reference's
 QuickAssist offload layer).
 
 Every read's mem_chain2aln logic runs as a host-side generator
 (host/regions.py:extension_plan); this module advances ALL generators
 in lockstep waves.  Each wave collects one pending extension job per
 plan, pads them into fixed-shape arrays, runs ONE device program
-(device/extend.py or the Pallas kernel), and scatters the 6-tuple
+(device/extend.py), and scatters the 6-tuple
 results back.  Band-doubling retries and the left->right h0 dependency
 naturally become successive waves — the same 2-3 dispatch rounds per
 batch the FPGA fork used.
@@ -30,10 +30,10 @@ class WaveExtender:
 
     def __init__(self, opt: MemOpt, mat: np.ndarray, qmax: int = 511,
                  tmax: int = 1024, batch_fn: Optional[Callable] = None,
-                 use_pallas: bool = True, fused: bool = False,
-                 mesh=None):
-        # qmax default = Pallas LANES-1: at 256 the kernel adapters
-        # would silently reject every job to the scalar fallback
+                 fused: bool = False, mesh=None):
+        # qmax default = LANES-1 of the widest row-loop bucket: at 256
+        # the adapters would reject every longer job to the scalar
+        # fallback
         self.opt = opt
         self.mesh = mesh
         self.mat = np.asarray(mat, np.int32)
@@ -48,7 +48,7 @@ class WaveExtender:
         elif fused:
             self.batch_fn = self._make_fused_fn()
         else:
-            self.batch_fn = self._make_batch_fn(use_pallas)
+            self.batch_fn = self._make_batch_fn()
 
     def _make_fused_fn(self):
         from .extend_fused import extend_seed_batch_np
@@ -60,21 +60,14 @@ class WaveExtender:
                 self.qmax, self.tmax)
         return run
 
-    def _make_batch_fn(self, use_pallas: bool):
-        from .extend import extend_batch_np
-        pallas_fn = None
-        if use_pallas:
-            try:
-                from .extend_pallas import extend_batch_pallas_np
-                pallas_fn = extend_batch_pallas_np
-            except Exception:
-                pallas_fn = None
+    def _make_batch_fn(self):
+        from .extend import extend_rows_np
 
         def run(jobs):
-            fn = pallas_fn or extend_batch_np
-            return fn(jobs, self.mat, self.opt.o_del, self.opt.e_del,
-                      self.opt.o_ins, self.opt.e_ins, self.opt.zdrop,
-                      self.qmax, self.tmax)
+            return extend_rows_np(jobs, self.mat, self.opt.o_del,
+                                  self.opt.e_del, self.opt.o_ins,
+                                  self.opt.e_ins, self.opt.zdrop,
+                                  self.qmax, self.tmax)
         return run
 
     def _scalar(self, job) -> KswExt:

@@ -5,16 +5,22 @@ A job = one (query-slice, ref-slice, h0, w, pen) extension task; the
 dispatch layer collects thousands across a read batch (the QuickAssist
 batching idea) and this module runs them all in one device program.
 
-``extend_batch`` is the XLA path: jobs vectorized across the batch
-axis, target rows iterated with lax.fori_loop, the F-gap scan computed
-as a prefix max (closed form, see ref/ksw.py), adaptive band trimming
-and Z-drop reproduced exactly with per-job scalar state.  The Pallas
-wavefront kernel (extend_pallas.py) is a drop-in replacement validated
-against the same oracle.
+``extend_batch`` is the reference path for any scoring matrix: jobs
+vectorized across the batch axis, target rows iterated with
+lax.fori_loop over the full target width, the F-gap scan computed as a
+prefix max (closed form, see ref/ksw.py), adaptive band trimming and
+Z-drop reproduced exactly with per-job scalar state.
 
-Bit-exactness contract (tested in tests/test_device_extend.py):
-(score, qle, tle, gtle, gscore, max_off) identical to ref.ksw.ksw_extend
-for every job, including tie-breaking and early-exit timing.
+``extend_rows`` is the production row loop for bwa_fill_scmat-shaped
+matrices (match=a, mismatch=-b, N=-1): the same recurrence with the
+score profile computed arithmetically instead of a 5x5 gather, and a
+lax.while_loop that stops once every job is dead or the batch's
+longest target is consumed.
+
+Bit-exactness contract (tests/test_device_extend.py,
+tests/test_extend_plain.py): (score, qle, tle, gtle, gscore, max_off)
+identical to ref.ksw.ksw_extend for every job, including tie-breaking
+and early-exit timing.
 """
 
 from __future__ import annotations
@@ -26,6 +32,168 @@ import numpy as np
 
 I32 = jnp.int32
 NEG = -(1 << 29)
+LANES = 512          # widest lane bucket -> qlen <= LANES - 1 (510 bp reads)
+
+
+def width_for(max_qlen: int) -> int:
+    """DP lane-width bucket (pow2; 128 covers 100 bp reads)."""
+    for w in (128, 256, LANES):
+        if max_qlen < w:
+            return w
+    return LANES
+
+
+def _mat_ab(mat):
+    """Extract (a, b) from a bwa_fill_scmat-structured matrix; None if
+    the matrix doesn't have that structure."""
+    mat = np.asarray(mat)
+    a = int(mat[0, 0])
+    b = -int(mat[0, 1])
+    ok = True
+    for i in range(4):
+        for j in range(4):
+            ok &= int(mat[i, j]) == (a if i == j else -b)
+    ok &= np.all(mat[4, :] == -1) and np.all(mat[:, 4] == -1)
+    return (a, b) if ok else None
+
+
+@partial(jax.jit, static_argnames=("a", "b", "o_del", "e_del", "o_ins",
+                                   "e_ins", "zdrop"))
+def extend_rows(q, t, qlen, tlen, h0, w, end_bonus, a, b, o_del, e_del,
+                o_ins, e_ins, zdrop):
+    """Run N ksw_extend jobs in lockstep under a scmat scoring matrix.
+
+    q: int32 [N, W] query codes (qlen <= W - 1); t: int32 [N, T]
+    target codes; qlen/tlen/h0/w/end_bonus: int32 [N] (h0 > 0).
+    Returns int32 [N, 6]: score, qle, tle, gtle, gscore, max_off.
+
+    The DP state is the shifted eh arrays of ksw_extend as [N, W]
+    rows, one query cell per lane; per-job scalars are [N, 1] columns.
+    """
+    N, W = q.shape
+    T = t.shape[1]
+    oe_del = o_del + e_del
+    oe_ins = o_ins + e_ins
+    lane = jnp.arange(W, dtype=I32)[None, :]
+    qlen, tlen, h0, w_in, ebon = (x.astype(I32)[:, None] for x in
+                                  (qlen, tlen, h0, w, end_bonus))
+    qpad = jnp.where(lane < qlen, q, 4)
+    tT = t.T                       # row i of the target is contiguous
+    # band cap (w = min(w, max_ins, max_del); mat max = a)
+    max_ins = jnp.maximum((qlen * a + ebon - o_ins) // e_ins + 1, 1)
+    max_del = jnp.maximum((qlen * a + ebon - o_del) // e_del + 1, 1)
+    ww = jnp.minimum(jnp.minimum(w_in, max_ins), max_del)
+
+    # first row of the shifted eh arrays: eh_h[j] = H(-1, j-1)
+    ramp = h0 - oe_ins - (lane - 1) * e_ins
+    eh_h = jnp.where(lane == 0, h0, jnp.maximum(ramp, 0))
+    eh_h = jnp.where(lane <= qlen, eh_h, 0)
+    eh_e = jnp.zeros((N, W), I32)
+    n_rows = jnp.minimum(jnp.max(tlen), T)
+
+    def shift1(x):
+        # x[j-1] at lane j; lane 0 is masked by every caller
+        return jnp.roll(x, 1, axis=1)
+
+    def cond(c):
+        i, dead = c[0], c[-1]
+        return (i < n_rows) & ~jnp.all(dead)
+
+    def body(c):
+        (i, eh_h, eh_e, beg, end, best, max_i, max_j, max_ie, gscore,
+         max_off, dead) = c
+        act = ~dead & (i < tlen)                              # [N, 1]
+        beg_i = jnp.maximum(beg, i - ww)
+        end_i = jnp.minimum(jnp.minimum(end, i + ww + 1), qlen)
+        closed = beg_i >= end_i
+        h1_first = jnp.where(
+            beg_i == 0, jnp.maximum(h0 - (o_del + e_del * (i + 1)), 0), 0)
+        tb = jax.lax.dynamic_index_in_dim(
+            tT, jnp.clip(i, 0, T - 1), axis=0, keepdims=False)[:, None]
+        # score profile: match=a, mismatch=-b, N(either side)=-1
+        prof = jnp.where((tb > 3) | (qpad > 3), -1,
+                         jnp.where(tb == qpad, a, -b))
+        in_band = (lane >= beg_i) & (lane < end_i)
+        M = jnp.where(eh_h != 0, eh_h + prof, 0)
+        M = jnp.where(in_band, M, NEG)
+        E = jnp.where(in_band, eh_e, NEG)
+        he = jnp.maximum(M, E)
+        # F prefix-max scan (F[beg]=0; see ref/ksw.py derivation)
+        t_ins = jnp.where(in_band, jnp.maximum(M - oe_ins, 0), NEG)
+        pm = jax.lax.cummax(t_ins + lane * e_ins, axis=1)
+        F = jnp.where(lane >= 1, shift1(pm) - (lane - 1) * e_ins, NEG)
+        F = jnp.where(lane == beg_i, 0, F)
+        H = jnp.maximum(he, F)
+        H = jnp.where(in_band, jnp.maximum(H, 0), 0)
+        t_del = jnp.maximum(M - oe_del, 0)
+        Enew = jnp.maximum(eh_e - e_del, t_del)
+        # write-backs (only for active, open-band jobs)
+        upd = act & ~closed
+        wm_h = (lane > beg_i) & (lane <= end_i)
+        eh_h = jnp.where(upd & wm_h, shift1(H), eh_h)
+        eh_h = jnp.where(upd & (lane == beg_i), h1_first, eh_h)
+        eh_e = jnp.where(upd & in_band, Enew, eh_e)
+        eh_e = jnp.where(upd & (lane == end_i), 0, eh_e)
+        # closed-band lane: upstream writes eh[end]=h1, eh_e[end]=0,
+        # takes the gscore update, then breaks on m==0
+        cl = act & closed
+        eh_h = jnp.where(cl & (lane == end_i), h1_first, eh_h)
+        eh_e = jnp.where(cl & (lane == end_i), 0, eh_e)
+        # row max and its argmax in one reduction: max over H*W+lane;
+        # ties take the larger lane, upstream's `mj = m > h1 ? mj : j`
+        # last-wins rule.  Needs H*W < 2^31: scores are bounded by
+        # h0 + qlen*a <= ~2*511*a, far below 2^22 for any sane a.
+        pk = jnp.max(jnp.where(in_band, H * W + lane, NEG), axis=1,
+                     keepdims=True)
+        m = jnp.maximum(pk >> (W.bit_length() - 1), 0)
+        mj = pk & (W - 1)          # garbage when empty; gated on m > 0
+        h_open = jnp.take_along_axis(H, jnp.clip(end_i - 1, 0, W - 1),
+                                     axis=1)
+        h_last = jnp.where(closed, h1_first, h_open)
+        at_qend = act & (end_i == qlen) & (h_last >= gscore)
+        max_ie = jnp.where(at_qend, i, max_ie)
+        gscore = jnp.where(at_qend, h_last, gscore)
+        dead = dead | (act & (closed | (m == 0)))
+        alive = act & ~closed & (m != 0)
+        better = alive & (m > best)
+        max_off = jnp.where(better, jnp.maximum(max_off, jnp.abs(mj - i)),
+                            max_off)
+        if zdrop > 0:
+            di = i - max_i
+            dj = mj - max_j
+            dd = jnp.where(di > dj, (di - dj) * e_del, (dj - di) * e_ins)
+            dead = dead | (alive & ~better & (best - m - dd > zdrop))
+        best = jnp.where(better, m, best)
+        max_i = jnp.where(better, i, max_i)
+        max_j = jnp.where(better, mj, max_j)
+        # adaptive band trim on the updated arrays.  Upstream scans
+        # [beg_n, end_i] for the last nonzero, but lanes in
+        # [beg_i, beg_n) are zero by beg_n's definition, so scanning
+        # [beg_i, end_i] finds the same lane and both reductions run
+        # on the same mask.
+        nz = (eh_h != 0) | (eh_e != 0)
+        first_nz = jnp.min(jnp.where(in_band & nz, lane, W + 2), axis=1,
+                           keepdims=True)
+        last_nz = jnp.max(jnp.where((in_band | (lane == end_i)) & nz,
+                                    lane, NEG), axis=1, keepdims=True)
+        beg_n = jnp.minimum(first_nz, end_i)
+        j_dn = jnp.where(last_nz == NEG, beg_n - 1, last_nz)
+        end_n = jnp.minimum(j_dn + 2, qlen)
+        beg = jnp.where(alive, beg_n, beg)
+        end = jnp.where(alive, end_n, end)
+        return (i + 1, eh_h, eh_e, beg, end, best, max_i, max_j, max_ie,
+                gscore, max_off, dead)
+
+    zero = jnp.zeros((N, 1), I32)
+    # empty jobs (tlen <= 0: pad rows, absent sides, jobs masked out of
+    # a retry pass) start dead so they cannot hold the loop open; act
+    # gates every write-back, so this is bit-exact
+    init = (jnp.zeros((), I32), eh_h, eh_e, zero, qlen, h0, zero - 1,
+            zero - 1, zero - 1, zero - 1, zero, tlen <= 0)
+    (_, _, _, _, _, best, max_i, max_j, max_ie, gscore, max_off,
+     _) = jax.lax.while_loop(cond, body, init)
+    return jnp.concatenate([best, max_j + 1, max_i + 1, max_ie + 1,
+                            gscore, max_off], axis=1)
 
 
 @partial(jax.jit, static_argnames=("o_del", "e_del", "o_ins", "e_ins",
@@ -205,3 +373,37 @@ def extend_batch_np(jobs, mat, o_del, e_del, o_ins, e_ins, zdrop,
                        jnp.asarray(mat, dtype=I32), o_del, e_del, o_ins,
                        e_ins, zdrop, qmax, tmax)
     return tuple(np.asarray(x)[:n_real] for x in out)
+
+
+def extend_rows_np(jobs, mat, o_del, e_del, o_ins, e_ins, zdrop, qmax,
+                   tmax):
+    """Dispatch-layer adapter: list of dict jobs -> 6 result arrays
+    through ``extend_rows``.  Jobs are sorted by target length so the
+    row loop's all-dead exit comes early; matrices without scmat
+    structure and queries wider than LANES - 1 take ``extend_batch``."""
+    ab = _mat_ab(mat)
+    if ab is None or qmax > LANES - 1:
+        return extend_batch_np(jobs, mat, o_del, e_del, o_ins, e_ins,
+                               zdrop, qmax, tmax)
+    n = len(jobs)
+    order = sorted(range(n), key=lambda i: -len(jobs[i]["t"]))
+    W = width_for(max((len(j["q"]) for j in jobs), default=0))
+    N = 64
+    while N < n:
+        N <<= 1
+    q = np.full((N, W), 4, np.int32)
+    t = np.full((N, tmax), 4, np.int32)
+    p = np.zeros((5, N), np.int32)
+    p[2] = 1  # h0 > 0 for padding jobs
+    for slot, i in enumerate(order):
+        j = jobs[i]
+        ql, tl = len(j["q"]), len(j["t"])
+        q[slot, :ql] = j["q"]
+        t[slot, :tl] = j["t"]
+        p[:, slot] = (ql, tl, j["h0"], j["w"], j["end_bonus"])
+    res = np.asarray(extend_rows(jnp.asarray(q), jnp.asarray(t),
+                                 *(jnp.asarray(x) for x in p), ab[0],
+                                 ab[1], o_del, e_del, o_ins, e_ins, zdrop))
+    out = np.zeros((6, n), np.int32)
+    out[:, order] = res[:n].T
+    return tuple(out)

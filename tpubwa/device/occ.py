@@ -5,7 +5,7 @@ rows 5-6,14).
 HBM layout: one fused row per 128-base block — 4 uint32 checkpoint
 counts followed by 8 uint32 packed-base words (``occ_blocks``,
 [n_blocks, 12]).  One occ4 query = ONE 48-byte row gather + masked
-popcounts, the TPU analogue of bwa's count-interleaved OCC_INTERVAL
+popcounts, the device analogue of bwa's count-interleaved OCC_INTERVAL
 layout.  All rank/position arithmetic is int64 (human-scale 2*l_pac
 overflows int32).
 """
@@ -28,9 +28,8 @@ U32 = jnp.uint32
 def _fits_i32(seq_len: int) -> bool:
     """Ranks/positions live in [-1, seq_len+1]; int32 covers genomes
     under 2^31-2 doubled bases (E. coli..chr-scale).  Human-scale
-    indexes (GRCh38 doubled = 6.2e9) take the int64 path, which TPU
-    emulates in software — on small genomes int32 is ~an order of
-    magnitude faster."""
+    indexes (GRCh38 doubled = 6.2e9) take the int64 path; int32 is the
+    cheaper path wherever it fits."""
     return seq_len + 2 < (1 << 31)
 
 

@@ -262,9 +262,7 @@ def run_smem_jobs(didx: DeviceIndex, qd, ld, jobs, min_seed_len: int,
     if P == 0:
         # stack depth ~ #distinct interval sizes along one extension
         # path, which grows with log4(genome); overflow lanes fall back
-        # to the (much slower) scalar host path, so size generously.
-        # NOTE: keep P a multiple of 8 — a P=14 shape reproducibly
-        # faulted the TPU worker on this toolchain
+        # to the (much slower) scalar host path, so size generously
         P = 16 if didx.seq_len < (1 << 28) else 24
     npdt = didx.np_idt
     mpad = _pad_pow2(n)

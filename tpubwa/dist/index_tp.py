@@ -1,9 +1,9 @@
 """Index-sharded (tensor-parallel) FM-index lookups
 (SURVEY.md §2.2 TP row, §5.7: "shard occ/SA arrays by k-range, route
-lookup batches over ICI").
+lookup batches over the interconnect").
 
-GRCh38 fits one chip's HBM (~6 GB index on a 16 GB v5e, ~95 GB v5p),
-so data-parallel replication is the production default.  For
+GRCh38's index (~6 GB) fits one card's memory, so data-parallel
+replication is the production default.  For
 references that do NOT fit (pan-genomes, large clades), this module
 shards the big index arrays row-wise over a mesh axis: every chip
 holds a contiguous k-range slab, lookups are replicated, each chip

@@ -1,6 +1,6 @@
 """Data-parallel scaling (SURVEY.md §2.2, §5.8).
 
-The reference is a single-node pthreads program (kthread.c); the TPU
+The reference is a single-node pthreads program (kthread.c); this
 framework scales the same embarrassingly-parallel read axis over a
 jax.sharding.Mesh instead:
 
@@ -10,7 +10,8 @@ jax.sharding.Mesh instead:
 * multi-CHIP: the per-batch device programs (SMEM reach, SA walk,
   extension waves) are batched elementwise-over-jobs with a REPLICATED
   FM-index, so sharding the job axis over a 'dp' mesh axis partitions
-  every gather locally; the Pallas kernel is wrapped in shard_map.
+  every gather locally; the extension row loop runs under shard_map,
+  so each device stops at its own jobs' exit.
 
 ``DataParallel`` owns the mesh and the sharded entry points; the
 single-chip path is the mesh=None special case.
@@ -158,18 +159,16 @@ class DataParallel:
         return type(didx).tree_unflatten(
             aux, tuple(self.replicated(c) for c in children))
 
-    def shard_map_extend(self, tmax: int, a: int, b: int, o_del: int,
-                         e_del: int, o_ins: int, e_ins: int, zdrop: int,
-                         interpret: bool = False):
-        """The Pallas extension kernel under shard_map over 'dp'."""
+    def shard_map_extend(self, a: int, b: int, o_del: int, e_del: int,
+                         o_ins: int, e_ins: int, zdrop: int):
+        """device.extend.extend_rows under shard_map over 'dp': takes
+        (q, t, qlen, tlen, h0, w, end_bonus) sharded on the job axis."""
         from jax import shard_map
-        from ..device.extend_pallas import extend_batch_pallas
+        from ..device.extend import extend_rows
 
-        def local(q, t, p):
-            return extend_batch_pallas(q, t, p, a, b, o_del, e_del,
-                                       o_ins, e_ins, zdrop, tmax,
-                                       interpret)
+        def local(q, t, qlen, tlen, h0, w, eb):
+            return extend_rows(q, t, qlen, tlen, h0, w, eb, a, b, o_del,
+                               e_del, o_ins, e_ins, zdrop)
         return jax.jit(shard_map(
-            local, mesh=self.mesh,
-            in_specs=(P("dp"), P("dp"), P("dp")),
+            local, mesh=self.mesh, in_specs=(P("dp"),) * 7,
             out_specs=P("dp"), check_vma=False))

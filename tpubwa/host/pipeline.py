@@ -3,7 +3,7 @@ mem_process_seqs/~1150, worker1/worker2/~1100; SURVEY.md §2 row 3).
 
 ``align1_core`` produces regions for one read; ``process_seqs`` maps a
 batch of reads to SAM lines.  The seeding/extension callables default to
-the scalar oracle; the TPU pipeline substitutes batched device stages
+the scalar oracle; the device pipeline substitutes batched device stages
 producing identical regions (the QuickAssist gather->dispatch->scatter
 shape, SURVEY.md §3.4)."""
 
@@ -171,8 +171,8 @@ def process_batches(opt: MemOpt, fmi: FMIndex, batch_iter,
         adaptive = False
     elif os.environ.get("TPUBWA_NO_PREFETCH", "").strip():
         # explicit prefetch force (either way): follow it verbatim,
-        # no adaptivity — scaling_report and the prefetch-mode
-        # equality tests rely on deterministic scheduling
+        # no adaptivity — the prefetch-mode equality tests rely on
+        # deterministic scheduling
         overlap = not serial_pipeline()
         adaptive = False
     else:

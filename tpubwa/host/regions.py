@@ -4,7 +4,7 @@ mem_patch_reg/~545, mem_mark_primary_se/~960, mem_approx_mapq_se/~1040;
 SURVEY.md §2 rows 9,13).
 
 ``chain2aln`` is the scalar extension driver (the reference's CPU
-fallback shape); the TPU dispatch layer (tpubwa.device.dispatch)
+fallback shape); the device dispatch layer (tpubwa.device.dispatch)
 produces identical regions by batching the same left/right extension
 jobs across reads — the gather->kernel->scatter architecture the
 QuickAssist fork used (SURVEY.md §3.4).

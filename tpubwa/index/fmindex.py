@@ -1,6 +1,6 @@
 """FM-index runtime: occ / SA-sample queries + on-disk format.
 
-Data layout is designed for TPU HBM residency and batched gathers
+Data layout is designed for device-memory residency and batched gathers
 (SURVEY.md §2 rows 14,16), NOT a copy of bwa's interleaved file layout:
 
   * ``bwt_words``  uint32[ceil(n/16)] — stored BWT (the $-removed BWT of
@@ -8,8 +8,8 @@ Data layout is designed for TPU HBM residency and batched gathers
     ((15 - (k & 15)) << 1) so a word reads left-to-right.
   * ``occ_ckpt``   uint32[n_blocks+1, 4] — #occurrences of each base in
     stored BWT[0 : blk*128) (checkpoint every OCC_INTERVAL=128 bases,
-    8 words). A flat array of checkpoints gathers better on TPU than
-    bwa's count-interleaved stream.
+    8 words). A flat array of checkpoints gathers better on the device
+    than bwa's count-interleaved stream.
   * ``sa_sample``  int64[floor(n/32)+1] — SA value at every conceptual
     rank divisible by 32; entry 0 is -1 (bwa's convention, so that the
     LF-walk arithmetic ``sa = steps + sample`` works when the walk ends

@@ -1,9 +1,9 @@
 """Native (C++) runtime components, loaded via ctypes.
 
 The reference keeps its performance-critical runtime in C (is.c SAIS,
-kseq.h FASTQ, ksw.c fallback); this package provides the TPU
-framework's equivalents, compiled on demand with g++ into a cache
-directory (no pip/pybind dependency).
+kseq.h FASTQ, ksw.c fallback); this package provides the
+equivalents, compiled on demand with g++ into a cache directory
+inside the checkout (no pip/pybind dependency).
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import numpy as np
 
 _DIR = Path(__file__).resolve().parent
 _CACHE = Path(os.environ.get("TPUBWA_NATIVE_CACHE",
-                             Path.home() / ".cache" / "tpubwa"))
+                             _DIR.parent.parent / ".native_cache"))
 
 
 def _build(src_name: str, tag: str, deps=()) -> Path:

@@ -527,8 +527,8 @@ namespace {
 // Bit-identical to the scalar loop below: all arithmetic stays int32
 // (no 8/16-bit saturation shortcuts), and the row's F chain
 //   f(0) = 0;  f(j+1) = max(f(j) - e_ins, he(j) - oe_ins)
-// is rewritten as a biased prefix max (the same algebra as the Pallas
-// extension kernel's F-scan, device/extend_pallas.py:_prefix_max):
+// is rewritten as a biased prefix max (the same algebra as the device
+// row loop's F-scan, device/extend.py:extend_rows):
 //   v(j) = he(j) - oe_ins + (j+1)*e_ins
 //   u(j) = max(0, max_{k<j} v(k));   f(j) = u(j) - j*e_ins
 // u(0)=0 reproduces the f(j) >= -j*e_ins decay floor exactly.

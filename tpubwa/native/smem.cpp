@@ -9,7 +9,7 @@
 //
 // Used for: megaq tiny-tail redo (overflow lanes), oversize-read
 // scalar path — cases where a device dispatch costs more than the
-// work (docs/PERF_NOTES.md "tiny-tail host redo").
+// work.
 #include <cstdint>
 #include <climits>
 #include <cstring>

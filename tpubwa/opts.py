@@ -5,7 +5,7 @@ Mirrors the semantics of upstream bwa-mem's ``mem_opt_t`` /
 see SURVEY.md §2 row 4).  Every default below is the stock bwa-mem
 0.7.x default; changing any of them changes output records.
 
-This is a fresh TPU-native implementation: options live in a frozen
+This is a fresh implementation: options live in a frozen
 dataclass and flow explicitly through every stage (no globals), so the
 whole pipeline is trivially re-entrant and jit-friendly (scalars are
 baked into traces as static config).

@@ -3,7 +3,7 @@
 Host-side, NumPy-vectorized-per-row implementations of the alignment
 kernels with semantics matching upstream bwa's ksw.c / bwt.c exactly
 (tie-breaking, adaptive band trimming, Z-drop timing).  The production
-TPU path (tpubwa.device) is fuzzed against these in tests; the host
+device path (tpubwa.device) is fuzzed against these in tests; the host
 pipeline uses them directly as the CPU fallback — the same role the
 reference's CPU ksw_extend2 fallback plays under its FPGA offload
 (SURVEY.md §2 row 17).

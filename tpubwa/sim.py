@@ -282,8 +282,8 @@ def bench_index(genome_mb: int, realistic: bool = False,
         def log(m):
             pass
     if cache_dir is None:
-        cache_dir = os.path.join(os.path.expanduser("~"), ".cache",
-                                 "tpubwa-bench")
+        cache_dir = os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), ".bench_cache")
     os.makedirs(cache_dir, exist_ok=True)
     prefix = os.path.join(
         cache_dir, f"idx{genome_mb}m{'r' if realistic else ''}")
